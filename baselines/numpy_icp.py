@@ -115,3 +115,40 @@ def run_se3_icp_np(src, tgt, alpha=3.0, beta=1.0, scale_pre=3.0,
     Rp, tp = T[:3, :3], T[:3, 3]
     T[:3, 3] = tp / s - Rp @ cen_s + cen_t
     return T, it
+
+
+def _timed_pair(_):
+    import time
+    from se3_icp.datasets import standin
+    src, tgt, _ = standin.golden_problem()
+    t0 = time.perf_counter()
+    run_se3_icp_np(src, tgt)
+    return time.perf_counter() - t0
+
+
+def baseline_rates() -> dict:
+    """Serial and all-core pairs/s of this CPU reference on the golden
+    stand-in pair.  Run it in a process that has not imported JAX
+    (``python -m baselines.numpy_icp``): the pool forks this process."""
+    import multiprocessing as mp
+    import os
+    import time
+    dt = _timed_pair(0)
+    nproc = os.cpu_count() or 1
+    out = {"pairs_per_s": 1.0 / dt, "seconds_per_pair": dt, "nproc": nproc}
+    if nproc == 1:
+        # fork + pool overhead would only flatter the ratio on 1 core
+        out["parallel_pairs_per_s"] = out["pairs_per_s"]
+    else:
+        t0 = time.perf_counter()
+        with mp.get_context("fork").Pool(nproc) as pool:
+            pool.map(_timed_pair, range(nproc))
+        out["parallel_pairs_per_s"] = nproc / (time.perf_counter() - t0)
+    return out
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+    assert "jax" not in sys.modules
+    print(json.dumps(baseline_rates()))

@@ -2,7 +2,7 @@
 
 Demonstrates the intended serving pattern: a host-side producer stages
 incoming frame pairs (sensor stream, file queue, RPC ingest) into
-fixed-size batches while the TPU registers the previous batch -- the
+fixed-size batches while the device registers the previous batch -- the
 cached compiled program (parallel.pairs) means steady-state throughput
 after the first batch, and JAX's async dispatch overlaps the host
 staging with device execution.
@@ -16,16 +16,16 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from se3_icp_tpu.utils.cache import enable_persistent_cache
+from se3_icp.utils.cache import enable_persistent_cache
 
 enable_persistent_cache()
 
 import numpy as np  # noqa: E402
 
-from se3_icp_tpu.datasets import synthetic  # noqa: E402
-from se3_icp_tpu.parallel import pairs as par  # noqa: E402
-from se3_icp_tpu.utils import metrics_host  # noqa: E402
-from se3_icp_tpu.utils.config import GOLDEN  # noqa: E402
+from se3_icp.datasets import synthetic  # noqa: E402
+from se3_icp.parallel import pairs as par  # noqa: E402
+from se3_icp.utils import metrics_host  # noqa: E402
+from se3_icp.utils.config import GOLDEN  # noqa: E402
 
 
 def frame_pair_stream(rng, n):

@@ -1,14 +1,14 @@
-// Native host-runtime accelerator for se3-icp-tpu.
+// Native host-runtime accelerator for se3-icp.
 //
 // The reference's runtime layer is C++ (Open3D IO, FLANN, OpenMP); the
-// TPU compute path here is XLA/Pallas, and this library provides the
+// device compute path here is XLA/Pallas, and this library provides the
 // native counterpart for the host side: bulk binary block reads for the
-// PLY loader (se3_icp_tpu/utils/ply.py) and OpenMP-parallel staging of
+// PLY loader (se3_icp/utils/ply.py) and OpenMP-parallel staging of
 // whole benchmark sequences (551 KITTI clouds, 80 lounge frames) into a
 // caller-provided arena ahead of device upload.
 //
 // Build: `make -C native` -> libse3io.so, loaded via ctypes
-// (se3_icp_tpu/utils/native.py). Everything degrades to numpy when the
+// (se3_icp/utils/native.py). Everything degrades to numpy when the
 // library is absent.
 
 #include <cstdint>

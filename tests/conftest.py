@@ -1,6 +1,6 @@
-"""Test harness: force an 8-virtual-device CPU platform so multi-chip
-sharding logic is exercised without TPU hardware, and enable x64 so
-numpy float64 oracles can be compared at full precision."""
+"""Test harness: force an 8-virtual-device CPU platform so multi-device
+sharding logic is exercised without accelerator hardware, and enable
+x64 so numpy float64 oracles can be compared at full precision."""
 
 import os
 
@@ -12,30 +12,34 @@ os.environ["XLA_FLAGS"] = (
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")  # env var alone is not enough
+jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 assert jax.device_count() == 8, "expected 8 virtual CPU devices"
 
-from se3_icp_tpu.utils.cache import enable_persistent_cache  # noqa: E402
+from se3_icp.utils.cache import enable_persistent_cache  # noqa: E402
 
 enable_persistent_cache()
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
-REFERENCE = "/root/reference"
-
 
 @pytest.fixture(scope="session")
 def golden_problem():
-    """The committed fixture: created_example_reg_problem (SURVEY.md §4)."""
-    from se3_icp_tpu.utils import ply
+    """The golden problem (created_example_reg_problem protocol,
+    SURVEY.md §4) on the seeded bunny stand-in."""
+    from se3_icp.datasets import standin
 
-    base = os.path.join(REFERENCE, "created_example_reg_problem")
-    src = ply.read_ply(os.path.join(base, "source.ply"))
-    tgt = ply.read_ply(os.path.join(base, "target.ply"))
-    T_gt = ply.read_transform_txt(os.path.join(base, "transformation_gt.txt"))
-    return src.points, tgt.points, T_gt
+    return standin.golden_problem()
+
+
+@pytest.fixture(scope="session")
+def golden_dir(tmp_path_factory):
+    """The golden problem written in the reference's folder layout
+    (source.ply / target.ply / transformation_gt.txt)."""
+    from se3_icp.datasets import standin
+
+    return standin.save_golden_problem(str(tmp_path_factory.mktemp("golden")))
 
 
 @pytest.fixture(scope="session")

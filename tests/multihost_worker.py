@@ -12,7 +12,7 @@ def main():
     port = sys.argv[3]
 
     sys.path.insert(0, sys.argv[4])
-    from se3_icp_tpu.parallel import multihost
+    from se3_icp.parallel import multihost
 
     multihost.initialize(f"127.0.0.1:{port}", nproc, pid,
                          cpu_devices_per_process=2)
@@ -21,9 +21,9 @@ def main():
     import numpy as np
 
     jax.config.update("jax_enable_x64", True)
-    from se3_icp_tpu.datasets import synthetic
-    from se3_icp_tpu.utils import metrics_host
-    from se3_icp_tpu.utils.config import GOLDEN
+    from se3_icp.datasets import synthetic
+    from se3_icp.utils import metrics_host
+    from se3_icp.utils.config import GOLDEN
 
     # deterministic global problem list; each process takes its slice
     all_probs = [synthetic.synthetic_problem("easy", 0.002, seed=200 + i)

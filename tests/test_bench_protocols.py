@@ -5,7 +5,7 @@ on-disk layouts (datasets/fixtures.py)."""
 import numpy as np
 import pytest
 
-from se3_icp_tpu.datasets import fixtures
+from se3_icp.datasets import fixtures
 
 
 @pytest.fixture(scope="module")
@@ -23,7 +23,7 @@ def kitti_dir(tmp_path_factory):
 
 
 def test_lounge_protocol_with_cf(lounge_dir):
-    from se3_icp_tpu.bench import lounge_bench
+    from se3_icp.bench import lounge_bench
     rep = lounge_bench.benchmark_lounge("se3_gicp_with_cf", lounge_dir,
                                         dtype=np.float64)
     assert rep["num_pairs"] == 2  # frames 1..11 -> pairs (1,6),(6,11)
@@ -33,7 +33,7 @@ def test_lounge_protocol_with_cf(lounge_dir):
 
 def test_lounge_loader_gt_convention(lounge_dir):
     """T12 = inv(T2) @ T1 must map source (frame i) onto target (i+5)."""
-    from se3_icp_tpu.bench import lounge_bench
+    from se3_icp.bench import lounge_bench
     pairs, gts = lounge_bench.load_lounge_pairs(lounge_dir)
     src, tgt = pairs[0]
     T12 = gts[0]
@@ -49,7 +49,7 @@ def test_lounge_loader_gt_convention(lounge_dir):
 
 
 def test_kitti_protocol(kitti_dir):
-    from se3_icp_tpu.bench import kitti_bench
+    from se3_icp.bench import kitti_bench
     rep = kitti_bench.benchmark_kitti("se3_pt2pl", kitti_dir,
                                       dtype=np.float64, max_index=6)
     assert rep["num_pairs"] == 3
@@ -67,11 +67,11 @@ def kitti_hard_dir(tmp_path_factory):
 
 
 def test_kitti_protocol_hard(kitti_hard_dir):
-    """Adversarial LiDAR fixture (VERDICT r1 item 6): ring-pattern
+    """Adversarial LiDAR fixture: ring-pattern
     scans, ~60-80% inter-frame overlap, range-dependent noise, outlier
     clusters, and a moving object.  The trimmed se3_pt2pl protocol must
     still register every pair within the trajectory-quality rule."""
-    from se3_icp_tpu.bench import kitti_bench
+    from se3_icp.bench import kitti_bench
     rep = kitti_bench.benchmark_kitti("se3_pt2pl", kitti_hard_dir,
                                       dtype=np.float64, max_index=6)
     assert rep["num_pairs"] == 3
@@ -86,7 +86,7 @@ def test_hard_fixture_is_adversarial(kitti_hard_dir):
     (guards against the generator silently degrading to the friendly
     resample)."""
     from scipy.spatial import cKDTree
-    from se3_icp_tpu.bench import kitti_bench
+    from se3_icp.bench import kitti_bench
     clouds, poses = kitti_bench.load_kitti(kitti_hard_dir, max_index=6)
     src, tgt = clouds[1], clouds[0]
     T12 = np.linalg.inv(poses[0]) @ poses[1]
@@ -102,7 +102,7 @@ def test_hard_fixture_is_adversarial(kitti_hard_dir):
 
 
 def test_lounge_protocol_hard(tmp_path_factory):
-    from se3_icp_tpu.bench import lounge_bench
+    from se3_icp.bench import lounge_bench
     d = str(tmp_path_factory.mktemp("lounge_hard_fix"))
     fixtures.make_lounge_fixture(d, n_frames=11, n_points=900, hard=True)
     rep = lounge_bench.benchmark_lounge("se3_gicp_with_cf", d,
@@ -117,8 +117,8 @@ def test_kitti_every_other_pose_line(kitti_dir):
     other row so poses align with the step-2 clouds
     (benchmark_kitti.cpp:79-98)."""
     import os
-    from se3_icp_tpu.bench import kitti_bench
-    from se3_icp_tpu.utils import ply
+    from se3_icp.bench import kitti_bench
+    from se3_icp.utils import ply
     clouds, poses = kitti_bench.load_kitti(kitti_dir, max_index=6)
     raw = ply.read_trajectory_12col(
         os.path.join(kitti_dir, "Sequence_07", "07.txt"))
@@ -131,7 +131,7 @@ def test_kitti_online_odometry(kitti_dir):
     previous pair) matches the batched protocol's accuracy and cuts
     iterations on the warm-started frames (plain pt2pl skips the
     SE(3) basin search entirely when warm)."""
-    from se3_icp_tpu.bench import kitti_bench
+    from se3_icp.bench import kitti_bench
     online = kitti_bench.benchmark_kitti("pt2pl", kitti_dir,
                                          dtype=np.float64, max_index=6,
                                          online=True)
@@ -148,7 +148,7 @@ def test_kitti_analyze(kitti_dir):
     """Dormant KITTI difficulty + Chamfer analyses
     (benchmark_kitti.cpp:395-585): GT alignment must cut the NN
     distance, and the top-70% trim must suppress the non-overlap tail."""
-    from se3_icp_tpu.bench import kitti_bench
+    from se3_icp.bench import kitti_bench
     rep = kitti_bench.analyze_kitti(kitti_dir, max_index=6)
     assert rep["num_pairs"] == 3
     assert (rep["avg_point_cloud_distance"]
@@ -163,7 +163,7 @@ def test_alpha_sweeps_short_grid(kitti_dir, lounge_dir, monkeypatch):
     lounge_alpha_sweep) run the protocol per alpha; a short grid keeps
     CI fast -- the full hybrid grid shares the same compiled program
     (traced float)."""
-    from se3_icp_tpu.bench import common, kitti_bench, lounge_bench
+    from se3_icp.bench import common, kitti_bench, lounge_bench
     monkeypatch.setattr(common, "hybrid_alpha_grid",
                         lambda: [3.0, 100.0])
     reps_k = kitti_bench.kitti_alpha_sweep("se3_pt2pl", kitti_dir,

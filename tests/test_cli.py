@@ -14,10 +14,8 @@ import json
 import numpy as np
 import pytest
 
-from se3_icp_tpu import cli
-from se3_icp_tpu.utils import metrics_host, ply
-
-GOLDEN_DIR = "/root/reference/created_example_reg_problem"
+from se3_icp import cli
+from se3_icp.utils import metrics_host, ply
 
 
 def _last_json(capsys):
@@ -97,13 +95,13 @@ def test_run_rejects_conflicting_flags(tmp_path):
                   "--initial-transform", gp])
 
 
-def test_run_golden_json(capsys):
+def test_run_golden_json(golden_dir, capsys):
     """run se3_pt2pl on the golden problem: printed 4x4 + --json record
     land inside the reference's 2 deg / 0.25 success bounds."""
-    cli.main(["run", "se3_pt2pl", f"{GOLDEN_DIR}/source.ply",
-              f"{GOLDEN_DIR}/target.ply", "--json"])
+    cli.main(["run", "se3_pt2pl", f"{golden_dir}/source.ply",
+              f"{golden_dir}/target.ply", "--json"])
     rep, out = _last_json(capsys)
-    T_gt = ply.read_transform_txt(f"{GOLDEN_DIR}/transformation_gt.txt")
+    T_gt = ply.read_transform_txt(f"{golden_dir}/transformation_gt.txt")
     T = np.array(rep["T"])
     assert T.shape == (4, 4)
     assert rep["num_iterations"] >= 1
@@ -142,8 +140,8 @@ def test_create_problem_roundtrip(tmp_path, capsys):
     assert T_gt.shape == (4, 4)
     np.testing.assert_allclose(T_gt[:3, 3], [1.0, 2.0, 3.0], atol=1e-5)
     np.testing.assert_allclose(T_gt[3], [0, 0, 0, 1], atol=0)
-    ref_gt = ply.read_transform_txt(f"{GOLDEN_DIR}/transformation_gt.txt")
-    np.testing.assert_allclose(T_gt, ref_gt, atol=1e-5)
+    from se3_icp.datasets import standin
+    np.testing.assert_allclose(T_gt, standin.golden_problem()[2], atol=1e-5)
 
 
 def test_bench_synthetic_generate_then_benchmark(tmp_path, capsys):

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from se3_icp_tpu.ops import eigh3
+from se3_icp.ops import eigh3
 
 
 def random_sym(rng, n, scale=1.0):
@@ -92,32 +92,3 @@ def test_inv_sqrt_sym3(rng):
                                np.tile(np.eye(3), (64, 1, 1)), atol=1e-8)
     # symmetric
     np.testing.assert_allclose(W, W.transpose(0, 2, 1), atol=1e-9)
-
-
-def test_smallest_eigvec3_c_matches_rowmajor(rng):
-    """The component-major variant (TPU setup glue) must agree with
-    smallest_eigvec3 up to sign on generic symmetric matrices, and
-    return valid unit eigenvectors on degenerate ones."""
-    X = rng.normal(size=(4096, 3, 3)).astype(np.float32)
-    A = np.einsum("nij,nkj->nik", X, X)
-    A[0] = 0.0
-    A[1] = np.eye(3)
-    A[2] = np.diag([1.0, 1.0, 0.0])
-    v_ref = np.asarray(eigh3.smallest_eigvec3(jnp.asarray(A)))
-    comps = [jnp.asarray(A[:, i, j])
-             for i, j in [(0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)]]
-    v_c = np.stack([np.asarray(x)
-                    for x in eigh3.smallest_eigvec3_c(*comps)], -1)
-    # unit norm everywhere
-    np.testing.assert_allclose(np.linalg.norm(v_c, axis=1), 1.0,
-                               atol=1e-5)
-    # residual: A v = lam v
-    lam = np.einsum("nij,ni,nj->n", A, v_c, v_c)
-    res = np.linalg.norm(np.einsum("nij,nj->ni", A, v_c)
-                         - lam[:, None] * v_c, axis=1)
-    scale = np.abs(A).reshape(len(A), -1).max(1) + 1e-30
-    assert (res / scale).max() < 1e-3
-    # agreement mod sign away from the synthetic degenerate rows
-    dots = np.abs(np.einsum("ni,ni->n", v_ref[3:], v_c[3:]))
-    assert np.median(dots) > 1 - 1e-6
-    assert (dots > 0.99).mean() > 0.999

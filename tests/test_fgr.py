@@ -12,10 +12,10 @@ from scipy.spatial import cKDTree
 
 import jax.numpy as jnp
 
-from se3_icp_tpu.models import fgr
-from se3_icp_tpu.ops import fpfh as fpfh_ops
-from se3_icp_tpu.ops import knn, lrf
-from se3_icp_tpu.utils import metrics_host
+from se3_icp.models import fgr
+from se3_icp.ops import fpfh as fpfh_ops
+from se3_icp.ops import knn, lrf
+from se3_icp.utils import metrics_host
 
 
 def _pair_features_oracle(p1, n1, p2, n2):
@@ -102,7 +102,7 @@ def test_fpfh_matches_oracle(rng):
 
 
 def test_fpfh_dense_sum_matches_gathered(rng):
-    """The r5 dense ball-threshold neighbor-SPFH sum must reproduce the
+    """The dense ball-threshold neighbor-SPFH sum must reproduce the
     gathered exact-kNN route up to boundary-membership noise (a tie at
     the rank-k radius may flip one lowest-weight member)."""
     n, k = 300, 25
@@ -143,8 +143,8 @@ def test_fgr_registers_synthetic_problem(rng):
 
 def test_fgr_batched_sharded(rng):
     """fgr through the pair-DP machinery on the 8-device CPU mesh."""
-    from se3_icp_tpu.bench import common
-    from se3_icp_tpu.parallel import pairs as par
+    from se3_icp.bench import common
+    from se3_icp.parallel import pairs as par
 
     problems = []
     gts = []

@@ -1,25 +1,43 @@
 import numpy as np
 
-from se3_icp_tpu.utils import ply
+from se3_icp.utils import ply
 
 
-def test_read_golden_fixture(golden_problem):
-    src, tgt, T_gt = golden_problem
+def test_read_golden_fixture(golden_dir):
+    src = ply.read_ply(f"{golden_dir}/source.ply").points
+    tgt = ply.read_ply(f"{golden_dir}/target.ply").points
+    T_gt = ply.read_transform_txt(f"{golden_dir}/transformation_gt.txt")
     assert src.shape == (4167, 3)
     assert tgt.shape == (4167, 3)
     # GT fixture: R = rot_3d(pi/9, pi/8, -pi/7), t = (1,2,3)
     # (examples/create_and_save_reg_problem.cpp:31-35)
     np.testing.assert_allclose(T_gt[:3, 3], [1.0, 2.0, 3.0])
     np.testing.assert_allclose(T_gt[3], [0, 0, 0, 1])
-    # target = T_gt * source (GT text file is truncated to 6 decimals)
+    # target = T_gt * source, through the PLY round trip
     mapped = src @ T_gt[:3, :3].T + T_gt[:3, 3]
     np.testing.assert_allclose(mapped, tgt, atol=1e-5)
 
 
-def test_read_bunny_with_faces():
-    cloud = ply.read_ply("/root/reference/stanford_bunny.ply")
+def test_read_bunny_with_faces(tmp_path):
+    """A binary PLY laid out like stanford_bunny.ply: float vertices
+    followed by a variable-stride face list (skipped by the reader)."""
+    from se3_icp.datasets import standin
+    pts = standin.bunny_standin().astype("<f4")
+    faces = np.arange(3 * 1000, dtype="<i4").reshape(-1, 3) % len(pts)
+    p = tmp_path / "bunny.ply"
+    with open(p, "wb") as f:
+        f.write((f"ply\nformat binary_little_endian 1.0\n"
+                 f"element vertex {len(pts)}\nproperty float x\n"
+                 f"property float y\nproperty float z\n"
+                 f"element face {len(faces)}\n"
+                 f"property list uchar int vertex_indices\n"
+                 f"end_header\n").encode())
+        f.write(pts.tobytes())
+        for tri in faces:
+            f.write(np.uint8(3).tobytes() + tri.tobytes())
+    cloud = ply.read_ply(p)
     assert cloud.points.shape == (208353, 3)
-    assert np.isfinite(cloud.points).all()
+    np.testing.assert_array_equal(cloud.points, pts.astype(np.float64))
 
 
 def test_write_read_roundtrip(tmp_path, rng):
@@ -36,9 +54,8 @@ def test_write_read_roundtrip(tmp_path, rng):
     np.testing.assert_allclose(back32.points, pts.astype(np.float32))
 
 
-def test_transform_txt_roundtrip(tmp_path):
-    T = ply.read_transform_txt(
-        "/root/reference/created_example_reg_problem/transformation_gt.txt")
+def test_transform_txt_roundtrip(tmp_path, golden_dir):
+    T = ply.read_transform_txt(f"{golden_dir}/transformation_gt.txt")
     assert T.shape == (4, 4)
     p = tmp_path / "t.txt"
     np.savetxt(p, T[:3])  # 3x4 form
@@ -67,7 +84,7 @@ def test_redwood_log_roundtrip(tmp_path, rng):
 
 
 def test_voxel_downsample():
-    from se3_icp_tpu.datasets import synthetic
+    from se3_icp.datasets import synthetic
 
     rng = np.random.default_rng(0)
     pts = rng.uniform(0, 1, size=(5000, 3))
@@ -90,7 +107,7 @@ def test_voxel_downsample():
         synthetic.voxel_downsample(pts, 0.0)
 
 
-def test_native_io_builds_and_matches_fallback(tmp_path):
+def test_native_io_builds_and_matches_fallback(tmp_path, golden_dir):
     """The C++ host-IO library auto-builds on first use (fresh checkouts
     have no .so) and reads byte-identically to the numpy fallback."""
     import subprocess
@@ -99,11 +116,11 @@ def test_native_io_builds_and_matches_fallback(tmp_path):
     code = r'''
 import sys, os, numpy as np
 sys.path.insert(0, sys.argv[1])
-from se3_icp_tpu.utils import native, ply
+from se3_icp.utils import native, ply
 assert native.available(), "native lib did not auto-build"
 p = sys.argv[2]
 a = ply.read_ply(p).points
-os.environ["SE3_ICP_TPU_NO_NATIVE"] = "1"
+os.environ["SE3_ICP_NO_NATIVE"] = "1"
 import importlib; importlib.reload(native)
 b = ply.read_ply(p).points
 assert np.array_equal(a, b), "native vs fallback mismatch"
@@ -115,8 +132,7 @@ print("NATIVE_OK")
     # exercise the auto-build: remove the artifact first
     if os.path.exists(so):
         os.remove(so)
-    ply_path = os.path.join(
-        "/root/reference/created_example_reg_problem", "source.ply")
+    ply_path = os.path.join(golden_dir, "source.ply")
     out = subprocess.run([sys.executable, "-c", code, repo, ply_path],
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
@@ -125,7 +141,7 @@ print("NATIVE_OK")
 
 
 def test_read_velodyne_bin_and_voxel(tmp_path):
-    """Raw KITTI velodyne ingestion (VERDICT r3 item 7): .bin rows are
+    """Raw KITTI velodyne ingestion: .bin rows are
     little-endian float32 (x, y, z, reflectance); voxel downsampling
     returns per-voxel centroids (Open3D VoxelDownSample semantics)."""
     rng = np.random.default_rng(0)
@@ -155,7 +171,7 @@ def test_load_kitti_raw_velodyne_bundle(tmp_path):
     bundle's convention), and step=2 strides scans directly."""
     from scipy.spatial.transform import Rotation
 
-    from se3_icp_tpu.bench import kitti_bench
+    from se3_icp.bench import kitti_bench
 
     rng = np.random.default_rng(1)
     vdir = tmp_path / "sequences" / "07" / "velodyne"

@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial import cKDTree
 
-from se3_icp_tpu.ops import knn
+from se3_icp.ops import knn
 
 
 def test_nn_argmin_matches_kdtree(rng):
@@ -69,7 +69,7 @@ def test_knn_topk_masked(rng):
 
 
 def test_nn_distances_chamfer(rng):
-    from se3_icp_tpu.utils import metrics
+    from se3_icp.utils import metrics
     a = rng.normal(size=(100, 3))
     b = rng.normal(size=(130, 3))
     cham = float(metrics.chamfer_distance_sq(jnp.asarray(a), jnp.asarray(b)))

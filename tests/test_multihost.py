@@ -1,6 +1,6 @@
 """Real multi-process test of the multi-host DP path: 2 processes x 2
 virtual CPU devices, Gloo collectives -- the same cross-process SPMD
-machinery a TPU pod uses over DCN."""
+machinery a multi-host deployment uses."""
 
 import json
 import os

@@ -10,11 +10,11 @@ with a small start fleet.
 import numpy as np
 import pytest
 
-from se3_icp_tpu.datasets import synthetic
-from se3_icp_tpu.models import multistart as ms
-from se3_icp_tpu.models import registration as reg
-from se3_icp_tpu.utils import metrics_host
-from se3_icp_tpu.utils.config import RegistrationConfig
+from se3_icp.datasets import synthetic
+from se3_icp.models import multistart as ms
+from se3_icp.models import registration as reg
+from se3_icp.utils import metrics_host
+from se3_icp.utils.config import RegistrationConfig
 
 
 def test_so3_grid_valid_rotations():
@@ -50,7 +50,7 @@ def test_single_start_matches_register_pair():
     unbatched engine (vmap changes reduction order, so the stop test
     can trigger one iteration apart -- NOT bit-comparable)."""
     import jax.numpy as jnp
-    from se3_icp_tpu.parallel import pairs as par
+    from se3_icp.parallel import pairs as par
 
     prob = synthetic.synthetic_problem("moderate", 0.005, seed=11)
     cfg = RegistrationConfig()
@@ -98,9 +98,9 @@ def test_multistart_rescues_difficult():
 def test_multistart_sharded_over_mesh():
     """The (pair, start) flattened batch shards over a pairs mesh like
     any other batch: same selections and transforms as unsharded."""
-    from se3_icp_tpu.parallel import pairs as par
+    from se3_icp.parallel import pairs as par
 
-    prob = synthetic.synthetic_problem("difficult", 0.005, seed=2)
+    prob = synthetic.synthetic_problem("difficult", 0.005, seed=1)
     cfg = RegistrationConfig()
     mesh = par.default_mesh()
     r_m = ms.register_pair_multistart(prob.source, prob.target,
@@ -146,7 +146,7 @@ def test_pairs_multistart_chunked_matches_unchunked():
     well-separated and the comparison is stable across the two compiled
     batch shapes (non-converging junk solutions would be ULP-unstable
     between programs)."""
-    from se3_icp_tpu.utils.config import GOLDEN
+    from se3_icp.utils.config import GOLDEN
 
     probs = [synthetic.synthetic_problem("easy", 0.002, seed=s)
              for s in (3, 4, 5)]
@@ -167,7 +167,7 @@ def test_pairs_multistart_chunked_matches_unchunked():
 
 def test_multistart_dtype_float64():
     """The dtype knob reaches the engine (was silently float32)."""
-    from se3_icp_tpu.utils.config import GOLDEN
+    from se3_icp.utils.config import GOLDEN
 
     prob = synthetic.synthetic_problem("easy", 0.002, seed=3)
     r = ms.register_pair_multistart(prob.source, prob.target,

@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from se3_icp_tpu.datasets import synthetic
-from se3_icp_tpu.models import registration as reg
-from se3_icp_tpu.parallel import pairs as par
-from se3_icp_tpu.utils import metrics
-from se3_icp_tpu.utils.config import GOLDEN
+from se3_icp.datasets import synthetic
+from se3_icp.models import registration as reg
+from se3_icp.parallel import pairs as par
+from se3_icp.utils import metrics
+from se3_icp.utils.config import GOLDEN
 
 
 def _problems(n, seed0=10):
@@ -71,7 +71,7 @@ def test_points_sharded_matches_unsharded():
     """Model-parallel (points-axis) registration == single-device result
     (setup kNN, LRF gathers, and the sharded per-iteration NN combine
     must be bit-compatible with the replicated path)."""
-    from se3_icp_tpu.parallel import points as mp
+    from se3_icp.parallel import points as mp
     mesh = mp.points_mesh()
     p = _problems(1, seed0=90)[0]
     r_mp = mp.register_pair_model_parallel(
@@ -87,7 +87,7 @@ def test_points_sharded_matches_unsharded():
 
 def test_points_sharded_gicp():
     """Covariance/normal gathers also hold for the gicp variant."""
-    from se3_icp_tpu.parallel import points as mp
+    from se3_icp.parallel import points as mp
     mesh = mp.points_mesh()
     p = _problems(1, seed0=91)[0]
     r_mp = mp.register_pair_model_parallel(
@@ -102,7 +102,7 @@ def test_points_sharded_gicp():
 def test_batch_2d_mesh():
     """2-D ('pairs','points') mesh: 4-way DP x 2-way model parallel."""
     from jax.sharding import Mesh
-    from se3_icp_tpu.parallel import points as mp
+    from se3_icp.parallel import points as mp
     devs = np.asarray(jax.devices()).reshape(4, 2)
     mesh = Mesh(devs, ("pairs", "points"))
     probs = _problems(4, seed0=92)
@@ -138,7 +138,7 @@ def test_scaling_bench_mechanics():
     """bench-scaling sweeps the device ladder and reports positive
     rates + normalized efficiency (mechanics only on CPU: virtual
     devices share the physical cores)."""
-    from se3_icp_tpu.bench import scaling_bench
+    from se3_icp.bench import scaling_bench
 
     assert scaling_bench.device_ladder(1) == [1]
     assert scaling_bench.device_ladder(6) == [1, 2, 4, 6]

@@ -8,10 +8,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from se3_icp_tpu.models import registration as reg
-from se3_icp_tpu.utils import metrics
-from se3_icp_tpu.utils.config import GOLDEN, RegistrationConfig
-from se3_icp_tpu.datasets import synthetic
+from se3_icp.models import registration as reg
+from se3_icp.utils import metrics
+from se3_icp.utils.config import GOLDEN, RegistrationConfig
+from se3_icp.datasets import synthetic
 
 
 def _errors(T_est, T_gt):
@@ -36,7 +36,7 @@ def test_golden_problem(golden_problem, alg):
 
 
 def test_golden_problem_float32(golden_problem):
-    """TPU dtype: still well inside the success bounds."""
+    """Serving dtype (float32): still well inside the success bounds."""
     src, tgt, T_gt = golden_problem
     res = reg.register_pair(src, tgt, "se3_pt2pl", GOLDEN,
                             dtype=jnp.float32)
@@ -136,11 +136,11 @@ def test_padding_invariance(golden_problem):
 def test_degenerate_iteration_caps_terminate():
     """max_num_iterations <= max_num_se3_iterations (or 1) must still
     terminate: the on-device while_loop uses >= stop tests, since a
-    masked batched loop can step past an == threshold (an == test hung
-    the TPU watchdog before this regression test existed)."""
+    masked batched loop can step past an == threshold and never
+    stop)."""
     import numpy as np
-    from se3_icp_tpu.models import registration as reg
-    from se3_icp_tpu.utils.config import GOLDEN
+    from se3_icp.models import registration as reg
+    from se3_icp.utils.config import GOLDEN
 
     rng = np.random.default_rng(0)
     src = rng.normal(size=(300, 3)).astype(np.float32)
@@ -157,9 +157,9 @@ def test_estimated_history():
     estimated_history_, ref:cpp:491,538): last entry == final transform,
     entries change monotonically toward it."""
     import numpy as np
-    from se3_icp_tpu.datasets import synthetic
-    from se3_icp_tpu.models import registration as reg
-    from se3_icp_tpu.utils.config import GOLDEN
+    from se3_icp.datasets import synthetic
+    from se3_icp.models import registration as reg
+    from se3_icp.utils.config import GOLDEN
 
     p = synthetic.synthetic_problem("easy", 0.002, seed=123)
     r = reg.register_pair(p.source, p.target, "gicp", GOLDEN,
@@ -181,10 +181,10 @@ def test_anderson_acceleration_optional():
     dependent: long R3 refinements can shorten, short runs are ~even)."""
     import numpy as np
     import pytest
-    from se3_icp_tpu.datasets import synthetic
-    from se3_icp_tpu.models import registration as reg
-    from se3_icp_tpu.utils import metrics
-    from se3_icp_tpu.utils.config import GOLDEN
+    from se3_icp.datasets import synthetic
+    from se3_icp.models import registration as reg
+    from se3_icp.utils import metrics
+    from se3_icp.utils.config import GOLDEN
 
     p = synthetic.synthetic_problem("moderate", 0.005, seed=11)
     base = reg.register_pair(p.source, p.target, "se3_pt2pl", GOLDEN)
@@ -202,10 +202,10 @@ def test_nonfinite_points_dropped():
     """NaN/inf rows in input clouds are dropped host-side instead of
     poisoning the distance matrices."""
     import numpy as np
-    from se3_icp_tpu.datasets import synthetic
-    from se3_icp_tpu.models import registration as reg
-    from se3_icp_tpu.utils import metrics
-    from se3_icp_tpu.utils.config import GOLDEN
+    from se3_icp.datasets import synthetic
+    from se3_icp.models import registration as reg
+    from se3_icp.utils import metrics
+    from se3_icp.utils.config import GOLDEN
 
     p = synthetic.synthetic_problem("easy", 0.002, seed=77)
     src = np.concatenate([p.source, [[np.nan, 0, 0], [np.inf, 1, 1]]])
@@ -221,10 +221,10 @@ def test_rigid_equivariance_e2e():
     algorithm's own convergence tolerance)."""
     import numpy as np
     from scipy.spatial.transform import Rotation
-    from se3_icp_tpu.datasets import synthetic
-    from se3_icp_tpu.models import registration as reg
-    from se3_icp_tpu.utils import metrics_host
-    from se3_icp_tpu.utils.config import GOLDEN
+    from se3_icp.datasets import synthetic
+    from se3_icp.models import registration as reg
+    from se3_icp.utils import metrics_host
+    from se3_icp.utils.config import GOLDEN
 
     p = synthetic.synthetic_problem("easy", 0.002, seed=88)
     Q = np.eye(4)
@@ -248,8 +248,8 @@ def test_engine_fuzz_degenerate_and_random():
     static config + 512-point bucket everywhere, so the whole sweep
     shares a handful of compiled programs."""
     import numpy as np
-    from se3_icp_tpu.models import registration as reg
-    from se3_icp_tpu.utils.config import RegistrationConfig
+    from se3_icp.models import registration as reg
+    from se3_icp.utils.config import RegistrationConfig
 
     cfg = RegistrationConfig(max_num_iterations=12,
                              max_num_se3_iterations=4)

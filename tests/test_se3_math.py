@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 
-from se3_icp_tpu.utils import se3, metrics
+from se3_icp.utils import se3, metrics
 
 
 def random_rotations(rng, n):
@@ -19,11 +19,13 @@ def test_rot_3d_matches_scipy():
     np.testing.assert_allclose(R, R_ref, atol=1e-12)
 
 
-def test_rot_3d_matches_golden_gt():
+def test_rot_3d_matches_golden_gt(tmp_path):
     # transformation_gt.txt was produced by rot_3d(pi/9, pi/8, -pi/7)
-    from se3_icp_tpu.utils import ply
+    from se3_icp.utils import ply
+    from se3_icp.datasets import standin
     T = ply.read_transform_txt(
-        "/root/reference/created_example_reg_problem/transformation_gt.txt")
+        f"{standin.save_golden_problem(str(tmp_path))}/"
+        "transformation_gt.txt")
     R = np.asarray(se3.rot_3d(np.pi / 9, np.pi / 8, -np.pi / 7))
     np.testing.assert_allclose(R, T[:3, :3], atol=1e-6)
 
@@ -121,7 +123,7 @@ def test_error_filterreg(rng):
 
 def test_se3_exp_log_roundtrip():
     import jax.numpy as jnp
-    from se3_icp_tpu.utils import se3
+    from se3_icp.utils import se3
 
     rng = np.random.default_rng(5)
     for scale in (1e-9, 1e-4, 0.1, 1.0, 3.0):

@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 
-from se3_icp_tpu.ops import solve, trim
+from se3_icp.ops import solve, trim
 import oracles
 
 
@@ -121,63 +121,3 @@ def test_trim_mask_respects_padding(rng):
     assert not ours[60:].any()
     ref = oracles.trimmed_mask_oracle(d[:60], 0.5)
     np.testing.assert_array_equal(ours[:60], ref)
-
-
-def test_solve_gicp_T_matches_rowmajor(rng):
-    """The component-major GICP step (TPU hot loop) must reproduce the
-    row-major solve on identical inputs."""
-    from se3_icp_tpu.ops import lrf
-
-    n = 400
-    src = rng.normal(size=(n, 3)).astype(np.float32)
-    tgt = (src + 0.01 * rng.normal(size=(n, 3))).astype(np.float32)
-    nrm_s = rng.normal(size=(n, 3)).astype(np.float32)
-    nrm_s /= np.linalg.norm(nrm_s, axis=1, keepdims=True)
-    nrm_t = rng.normal(size=(n, 3)).astype(np.float32)
-    nrm_t /= np.linalg.norm(nrm_t, axis=1, keepdims=True)
-    c6_s = lrf.gicp_cov6_from_normals_t(jnp.asarray(nrm_s.T))
-    c6_t = lrf.gicp_cov6_from_normals_t(jnp.asarray(nrm_t.T))
-    cov_s = np.asarray(lrf._cov6_to_mat(c6_s))
-    cov_t = np.asarray(lrf._cov6_to_mat(c6_t))
-    w = (rng.uniform(size=n) > 0.3).astype(np.float32)
-    conf = rng.uniform(0.2, 1.0, size=n).astype(np.float32)
-
-    T_row = np.asarray(solve.solve_gicp(
-        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(cov_s),
-        jnp.asarray(cov_t), jnp.asarray(w), jnp.asarray(conf)))
-    T_cm = np.asarray(solve.solve_gicp_T(
-        jnp.asarray(src.T), jnp.asarray(tgt.T), c6_s, c6_t,
-        jnp.asarray(w), jnp.asarray(conf)))
-    np.testing.assert_allclose(T_cm, T_row, atol=2e-5)
-    # unweighted / no-conf path too
-    T_row0 = np.asarray(solve.solve_gicp(
-        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(cov_s),
-        jnp.asarray(cov_t), jnp.ones(n)))
-    T_cm0 = np.asarray(solve.solve_gicp_T(
-        jnp.asarray(src.T), jnp.asarray(tgt.T), c6_s, c6_t,
-        jnp.ones(n)))
-    np.testing.assert_allclose(T_cm0, T_row0, atol=2e-5)
-
-
-def test_gicp_cov6_closed_form_matches_rodrigues(rng):
-    """C = I - (1-eps) n n^T == Rx diag(eps,1,1) Rx^T, including the
-    reference's c < -0.99 identity-rotation quirk (ref:cpp:4-14)."""
-    from se3_icp_tpu.ops import lrf
-
-    n = 500
-    nrm = rng.normal(size=(n, 3))
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    # force some rows into the quirk region (n_x < -0.99)
-    nrm[:40] = np.array([-1.0, 0.0, 0.0])
-    v = rng.normal(size=(40, 3)) * 0.05
-    nrm[:40, 1:] = v[:, 1:]
-    nrm[:40] /= np.linalg.norm(nrm[:40], axis=1, keepdims=True)
-    nrm = nrm.astype(np.float32)
-
-    Rx = lrf.rotation_from_e1_to_x(jnp.asarray(nrm))
-    C_ref = np.asarray(
-        Rx @ jnp.diag(jnp.asarray([1e-3, 1.0, 1.0], jnp.float32))
-        @ Rx.mT)
-    C_cm = np.asarray(lrf._cov6_to_mat(
-        lrf.gicp_cov6_from_normals_t(jnp.asarray(nrm.T), 1e-3)))
-    np.testing.assert_allclose(C_cm, C_ref, atol=1e-5)
